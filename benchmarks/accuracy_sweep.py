@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Multi-seed accuracy A/B sweep on the photo-textured world.
 
-The tool behind default-tuning decisions (NOTES.md round-3/4 ledgers): runs
+The tool behind default-tuning decisions (NOTES.md accuracy findings): runs
 the full pipeline over N seeds of the 160-frame photo-textured sequence (the
 representative regime — natural image statistics, the stand-in for real KITTI,
 see tests/test_long_sequence.py) for a baseline config and optionally an
@@ -63,17 +63,17 @@ def main():
     ap.add_argument("--chunk", type=int, default=32)
     args = ap.parse_args()
 
-    from stereo_vo_tpu.utils.cache import setup_compilation_cache
+    from stereo_vo.utils.cache import setup_compilation_cache
 
     setup_compilation_cache()
 
     import numpy as np
 
     from make_real_fixtures import load_photo
-    from stereo_vo_tpu.core.config import load_config
-    from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
-    from stereo_vo_tpu.engine.driver import run_vo
-    from stereo_vo_tpu.eval.ate import absolute_trajectory_error
+    from stereo_vo.core.config import load_config
+    from stereo_vo.data.synthetic import SyntheticStereoSequence
+    from stereo_vo.engine.driver import run_vo
+    from stereo_vo.eval.ate import absolute_trajectory_error
 
     base_over: dict = {}
     for s in args.base:
@@ -117,7 +117,7 @@ def main():
             line += f"   B: {b:6.2f} m ({kf_b} kf)"
         if not args.no_twin:
             try:
-                from stereo_vo_tpu.eval.cv_twin import run_cv_twin
+                from stereo_vo.eval.cv_twin import run_cv_twin
 
                 tp, _, _ = run_cv_twin(iter(frames), cfg_a.camera, cfg_a.frontend)
                 tw = absolute_trajectory_error(tp[: len(gt)], gt[: len(tp)])["rmse"]

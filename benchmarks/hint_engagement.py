@@ -4,7 +4,7 @@
 Streams frames one at a time (state on host between steps) and reads
 ``tracker.pred_err`` — the gate for the next frame's hinted pass
 (frontend/track.py). Engagement fraction bounds the achievable average LK
-cost: hinted 2-level ~1.1 ms vs full 4-level ~2.3 ms (probe_stages).
+cost: a hinted pass runs 2 pyramid levels instead of 4.
 
 Usage: python benchmarks/hint_engagement.py [--frames 96]
 """
@@ -24,16 +24,16 @@ def main():
     ap.add_argument("--photo", action="store_true")
     args = ap.parse_args()
 
-    from stereo_vo_tpu.utils.cache import setup_compilation_cache
+    from stereo_vo.utils.cache import setup_compilation_cache
 
     setup_compilation_cache()
 
     import jax.numpy as jnp
     import numpy as np
 
-    from stereo_vo_tpu.core.config import load_config
-    from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
-    from stereo_vo_tpu.engine.step import VOEngine
+    from stereo_vo.core.config import load_config
+    from stereo_vo.data.synthetic import SyntheticStereoSequence
+    from stereo_vo.engine.step import VOEngine
 
     cfg = load_config("kitti00")
     tex = None

@@ -3,8 +3,8 @@
 
 Diagnosis tool for couplings the stage probes can't see: a tracking change
 that shifts feature survival moves the keyframe gate (parallax/lost,
-image_processor.cpp:63-65), and keyframe-branch work (~7 ms: PnP + BM + BA)
-dwarfs any per-frame LK saving. Prints kf count, fps, ATE for each arm on
+image_processor.cpp:63-65), and keyframe-branch work (PnP + BM + BA) can
+dwarf any per-frame LK saving. Prints kf count, fps, ATE for each arm on
 identical frames.
 
 Usage: python benchmarks/kf_cadence_ab.py --frames 129 \
@@ -33,16 +33,16 @@ def main():
     ap.add_argument("--base", action="append", default=[])
     args = ap.parse_args()
 
-    from stereo_vo_tpu.utils.cache import setup_compilation_cache
+    from stereo_vo.utils.cache import setup_compilation_cache
 
     setup_compilation_cache()
 
     import numpy as np
 
-    from stereo_vo_tpu.core.config import load_config
-    from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
-    from stereo_vo_tpu.engine.driver import run_vo
-    from stereo_vo_tpu.eval.ate import absolute_trajectory_error
+    from stereo_vo.core.config import load_config
+    from stereo_vo.data.synthetic import SyntheticStereoSequence
+    from stereo_vo.engine.driver import run_vo
+    from stereo_vo.eval.ate import absolute_trajectory_error
 
     base_over: dict = {}
     for s in args.base:

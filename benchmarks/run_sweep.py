@@ -30,8 +30,8 @@ SEQ_CONFIG = {"00": "kitti00", "03": "kitti03", "08": "kitti08",
 
 
 def run_one(cfg, frames, gt, chunk, twin=False):
-    from stereo_vo_tpu.engine.driver import run_vo
-    from stereo_vo_tpu.eval.ate import absolute_trajectory_error
+    from stereo_vo.engine.driver import run_vo
+    from stereo_vo.eval.ate import absolute_trajectory_error
 
     run = run_vo(iter(frames), cfg, chunk_size=chunk, preload_device=True)
     kf = np.array([s["is_keyframe"] for s in run.frame_stats])
@@ -49,7 +49,7 @@ def run_one(cfg, frames, gt, chunk, twin=False):
             absolute_trajectory_error(run.poses[kf], gt_arr[kf], align=True)["rmse"], 3
         )
     if twin:
-        from stereo_vo_tpu.eval.cv_twin import run_cv_twin
+        from stereo_vo.eval.cv_twin import run_cv_twin
 
         poses_cv, stats_cv, dt = run_cv_twin(frames, cfg.camera, cfg.frontend)
         kf_cv = np.array([s["is_keyframe"] for s in stats_cv])
@@ -84,15 +84,15 @@ def main():
         import jax
 
         jax.config.update("jax_platforms", args.platform)
-    from stereo_vo_tpu.utils.cache import setup_compilation_cache
+    from stereo_vo.utils.cache import setup_compilation_cache
 
     setup_compilation_cache()
 
-    from stereo_vo_tpu.core.config import load_config
+    from stereo_vo.core.config import load_config
 
     rows = []
     if args.synthetic or not args.kitti_root:
-        from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
+        from stereo_vo.data.synthetic import SyntheticStereoSequence
 
         n = args.frames or 97
         n = 1 + max(1, round((n - 1) / args.chunk)) * args.chunk
@@ -108,7 +108,7 @@ def main():
             rows.append(row)
             print(json.dumps(row), flush=True)
     else:
-        from stereo_vo_tpu.data.kitti import KittiSequence
+        from stereo_vo.data.kitti import KittiSequence
 
         for seq in args.sequences:
             cfg = load_config(SEQ_CONFIG.get(seq, "kitti00"))

@@ -1,13 +1,13 @@
-// svo_io: native data-plane for stereo_vo_tpu.
+// svo_io: native data-plane for stereo_vo.
 //
 // The reference's data loader is a C++ node (kitti_node.cpp: cv::imread of
-// image_0/image_1 PNGs + paced publishing). This library is its TPU-framework
+// image_0/image_1 PNGs + paced publishing). This library is this framework's
 // equivalent: a dependency-light grayscale PNG decoder (zlib only) and a
 // multi-threaded prefetching replay loader with an in-order ring buffer, so
 // image decode overlaps device compute without Python-thread (GIL) overhead.
 //
 // Exposed via a C ABI consumed from Python with ctypes
-// (stereo_vo_tpu/data/native_loader.py).
+// (stereo_vo/data/native_loader.py).
 
 #include <zlib.h>
 

@@ -1,0 +1,19 @@
+from stereo_vo.eval.ate import absolute_trajectory_error, relative_pose_error, umeyama_align
+from stereo_vo.eval.trajectory import (
+    load_kitti_trajectory,
+    load_tum_trajectory,
+    poses_to_positions,
+    write_kitti_trajectory,
+    write_tum_trajectory,
+)
+
+__all__ = [
+    "absolute_trajectory_error",
+    "relative_pose_error",
+    "umeyama_align",
+    "write_kitti_trajectory",
+    "write_tum_trajectory",
+    "load_kitti_trajectory",
+    "load_tum_trajectory",
+    "poses_to_positions",
+]

@@ -28,7 +28,7 @@ OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "real")
 
 
 def load_photo() -> np.ndarray:
-    from stereo_vo_tpu.data.synthetic import load_sample_photo
+    from stereo_vo.data.synthetic import load_sample_photo
 
     photo = load_sample_photo()
     assert photo is not None, "matplotlib sample data missing"
@@ -36,8 +36,8 @@ def load_photo() -> np.ndarray:
 
 
 def main():
-    from stereo_vo_tpu.core.config import load_config
-    from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
+    from stereo_vo.core.config import load_config
+    from stereo_vo.data.synthetic import SyntheticStereoSequence
 
     cfg = load_config("kitti00")
     world = SyntheticStereoSequence(
@@ -51,10 +51,12 @@ def main():
         os.makedirs(os.path.join(OUT, sub), exist_ok=True)
     rows = []
     for i, fr in enumerate(world):
-        Image.fromarray(fr.left).save(os.path.join(OUT, "image_0", f"{i:06d}.png"))
-        Image.fromarray(fr.right).save(os.path.join(OUT, "image_1", f"{i:06d}.png"))
+        Image.fromarray(fr.left).save(
+            os.path.join(OUT, "image_0", f"{i:06d}.png"), compress_level=2)
+        Image.fromarray(fr.right).save(
+            os.path.join(OUT, "image_1", f"{i:06d}.png"), compress_level=2)
         # KITTI GT format: 3x4 row-major T_wc
-        from stereo_vo_tpu.core import geometry as geo
+        from stereo_vo.core import geometry as geo
         import jax.numpy as jnp
 
         t_wc = np.asarray(geo.pose_to_matrix(geo.pose_inverse(jnp.asarray(fr.gt_pose))))

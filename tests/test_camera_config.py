@@ -2,8 +2,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_vo_tpu.core.camera import CameraInfo
-from stereo_vo_tpu.core.config import available_configs, load_config
+from stereo_vo.core.camera import CameraInfo
+from stereo_vo.core.config import available_configs, load_config
 
 
 def test_all_nine_reference_configs_present():
@@ -68,3 +68,49 @@ def test_backproject_matches_q_matrix():
     np.testing.assert_allclose(
         cam.back_project(uv, d)[0], hp[:3] / hp[3], rtol=1e-5
     )
+
+
+# Every key of every bundled camera file, as written there.
+BUNDLED = {
+    "kitti00": (718.856, 607.1928, 185.2157, 0.537165718864418, "/leftImage", "/rightImage", 11),
+    "kitti03": (721.5377, 609.5593, 172.854, 0.537150588250621, "/leftImage", "/rightImage", 11),
+    "kitti08": (707.0912, 601.8873, 183.1104, 0.53715065326, "/leftImage", "/rightImage", 11),
+    "kitti09": (707.0912, 601.8873, 183.1104, 0.53715065326, "/leftImage", "/rightImage", 11),
+    "kitti10": (707.0912, 601.8873, 183.1104, 0.53715065326, "/leftImage", "/rightImage", 11),
+    "kitti13": (718.856, 607.1928, 185.2157, 0.537165718864418, "/leftImage", "/rightImage", 11),
+    "d435i": (385.7544860839844, 323.1204833984375, 236.7432098388672, 0.05,
+              "/camera/infra1/image_rect_raw", "/camera/infra2/image_rect_raw", 30),
+    "r200": (554.3826904296875, 320, 240, 0.07, "/snake_r200/camera/ir/image_raw",
+             "/snake_r200/camera/ir2/image_raw", 30),
+    "multisense": (476.7030836014194, 400.5, 400.5, 0.07,
+                   "/multisense_sl/camera/left/image_raw",
+                   "/multisense_sl/camera/right/image_raw", 30),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUNDLED))
+def test_camera_file_reader(name):
+    """The YAML-free reader recovers every field of each bundled file."""
+    from stereo_vo.core.config import CONFIG_DIR, _read_camera_file
+
+    raw = _read_camera_file(f"{CONFIG_DIR}/{name}.yaml")
+    keys = ("focal_length", "cx", "cy", "baseline", "left_topic", "right_topic",
+            "frame_rate")
+    assert raw == dict(zip(keys, BUNDLED[name]))
+    cfg = load_config(name)
+    assert (cfg.camera.focal, cfg.left_topic, cfg.frame_rate) == (
+        BUNDLED[name][0], BUNDLED[name][4], float(BUNDLED[name][6]))
+
+
+def test_camera_file_sections_and_comments(tmp_path):
+    path = tmp_path / "cam.yaml"
+    path.write_text(
+        "# a rig\nfocal_length: 500.0  # px\ncx: 320\ncy: 240\nbaseline: 0.1\n"
+        "left_topic: '/l'\n\nbackend:\n  window_size: 7\n  lam_warm_start: false\n"
+        "frontend:\n  quality_level: 0.05\n"
+    )
+    cfg = load_config(str(path))
+    assert cfg.camera.focal == 500.0 and cfg.left_topic == "/l"
+    assert cfg.backend.window_size == 7 and cfg.backend.lam_warm_start is False
+    assert cfg.frontend.quality_level == 0.05
+    assert cfg.right_topic == "/rightImage"     # default kept

@@ -1,16 +1,16 @@
 import numpy as np
 import pytest
 
-from stereo_vo_tpu.core.camera import CameraInfo
-from stereo_vo_tpu.core.config import FrontendConfig
-from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
-from stereo_vo_tpu.eval.ate import absolute_trajectory_error
-from stereo_vo_tpu.utils import StageTimer
+from stereo_vo.core.camera import CameraInfo
+from stereo_vo.core.config import FrontendConfig
+from stereo_vo.data.synthetic import SyntheticStereoSequence
+from stereo_vo.eval.ate import absolute_trajectory_error
+from stereo_vo.utils import StageTimer
 
 
 def test_cv_twin_tracks_synthetic():
     cv2 = pytest.importorskip("cv2")
-    from stereo_vo_tpu.eval.cv_twin import run_cv_twin
+    from stereo_vo.eval.cv_twin import run_cv_twin
 
     cam = CameraInfo(focal=400.0, cx=160.0, cy=120.0, baseline=0.5)
     world = SyntheticStereoSequence(

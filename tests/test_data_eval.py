@@ -3,12 +3,12 @@ import os
 import numpy as np
 import pytest
 
-from stereo_vo_tpu.core.camera import CameraInfo
-from stereo_vo_tpu.data.kitti import KittiSequence, kitti_replay, parse_kitti_poses
-from stereo_vo_tpu.data.stream import drop_gate, StereoFrame
-from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
-from stereo_vo_tpu.eval.ate import absolute_trajectory_error, relative_pose_error, umeyama_align
-from stereo_vo_tpu.eval.trajectory import (
+from stereo_vo.core.camera import CameraInfo
+from stereo_vo.data.kitti import KittiSequence, kitti_replay, parse_kitti_poses
+from stereo_vo.data.stream import drop_gate, StereoFrame
+from stereo_vo.data.synthetic import SyntheticStereoSequence
+from stereo_vo.eval.ate import absolute_trajectory_error, relative_pose_error, umeyama_align
+from stereo_vo.eval.trajectory import (
     load_kitti_trajectory,
     load_tum_trajectory,
     poses_to_positions,
@@ -47,7 +47,7 @@ def test_synthetic_gt_projection_matches_camera_model(world):
     """projections() must agree with the framework camera/pose math."""
     import jax.numpy as jnp
 
-    from stereo_vo_tpu.core import geometry as geo
+    from stereo_vo.core import geometry as geo
 
     i = 3
     u, v, disp, vis = world.projections(i)
@@ -112,7 +112,7 @@ def test_umeyama_recovers_transform(rng):
     pts = rng.normal(size=(50, 3))
     import jax.numpy as jnp
 
-    from stereo_vo_tpu.core import geometry as geo
+    from stereo_vo.core import geometry as geo
 
     q = geo.quat_normalize(jnp.asarray(rng.normal(size=4), jnp.float32))
     r_true = np.asarray(geo.quat_to_rotmat(q))

@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_vo_tpu.core.camera import CameraInfo
-from stereo_vo_tpu.core.config import BackendConfig, FrontendConfig, PipelineConfig
-from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
-from stereo_vo_tpu.engine import run_vo
-from stereo_vo_tpu.engine.step import VOEngine
-from stereo_vo_tpu.eval.ate import absolute_trajectory_error
+from stereo_vo.core.camera import CameraInfo
+from stereo_vo.core.config import BackendConfig, FrontendConfig, PipelineConfig
+from stereo_vo.data.synthetic import SyntheticStereoSequence
+from stereo_vo.engine import run_vo
+from stereo_vo.engine.step import VOEngine
+from stereo_vo.eval.ate import absolute_trajectory_error
 
 CAM = CameraInfo(focal=400.0, cx=160.0, cy=120.0, baseline=0.5)
 
@@ -98,7 +98,7 @@ def test_checkpoint_resume_bitwise(world, tmp_path):
     out_a = str(tmp_path / "a")
     run_a = run_vo(iter(frames), cfg, out_dir=out_a, checkpoint_every=6)
 
-    from stereo_vo_tpu.engine.checkpoint import load_state
+    from stereo_vo.engine.checkpoint import load_state
 
     engine = VOEngine(cfg, frames[0].left.shape)
     state, next_idx = load_state(os.path.join(out_a, "checkpoint.npz"), engine)
@@ -115,7 +115,7 @@ def test_checkpoint_resume_bitwise(world, tmp_path):
 def test_blank_images_degrade_gracefully(tmp_path):
     """Frames with nothing to detect must not crash or move the pose."""
     cfg = small_config()
-    from stereo_vo_tpu.data.stream import StereoFrame
+    from stereo_vo.data.stream import StereoFrame
 
     blank = np.full((240, 320), 77, np.uint8)
     frames = [
@@ -148,7 +148,7 @@ def test_preload_survives_late_bootstrap(world):
     detection on the next frame, image_processor.cpp:23-25). Round 3 keyed
     preloaded chunks on the first-frame index, so a late bootstrap silently
     re-uploaded every chunk from the host (VERDICT r3 item 8)."""
-    from stereo_vo_tpu.data.stream import StereoFrame
+    from stereo_vo.data.stream import StereoFrame
 
     cfg = small_config()
     good = list(world)[:17]

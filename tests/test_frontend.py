@@ -3,16 +3,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_vo_tpu.core.camera import CameraInfo
-from stereo_vo_tpu.core.config import FrontendConfig
-from stereo_vo_tpu.core import geometry as geo
-from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
-from stereo_vo_tpu.frontend.detect import dedup_new_features, detect_features
-from stereo_vo_tpu.frontend.pnp import pnp_ransac
-from stereo_vo_tpu.frontend.track import TrackerState, track_step, tracker_init
-from stereo_vo_tpu.frontend.triangulate import triangulate_features
-from stereo_vo_tpu.ops.pyramid import build_pyramid
-from stereo_vo_tpu.ops.stereo_bm import stereo_bm_disparity
+from stereo_vo.core.camera import CameraInfo
+from stereo_vo.core.config import FrontendConfig
+from stereo_vo.core import geometry as geo
+from stereo_vo.data.synthetic import SyntheticStereoSequence
+from stereo_vo.frontend.detect import dedup_new_features, detect_features
+from stereo_vo.frontend.pnp import pnp_ransac
+from stereo_vo.frontend.track import TrackerState, track_step, tracker_init
+from stereo_vo.frontend.triangulate import triangulate_features
+from stereo_vo.ops.pyramid import build_pyramid
+from stereo_vo.ops.stereo_bm import stereo_bm_disparity
 
 CAM = CameraInfo(focal=300.0, cx=160.0, cy=120.0, baseline=0.3)
 CFG = FrontendConfig()
@@ -189,7 +189,7 @@ class TestTracker:
         pyramid; (b) the full-pyramid pass measures prediction error so the
         gate engages on the NEXT frame; (c) garbage hints on large motion
         kill features and reset the gate to the full pyramid."""
-        from stereo_vo_tpu.frontend.track import _NO_FLOW
+        from stereo_vo.frontend.track import _NO_FLOW
 
         # 30 px shift of a textured rendered frame: far beyond a 2-level
         # unhinted capture, trivial with a correct hint, exact ground truth

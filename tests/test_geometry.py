@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_vo_tpu.core import geometry as geo
+from stereo_vo.core import geometry as geo
 
 
 def random_quats(rng, n, unit=True):

@@ -22,7 +22,7 @@ def _image():
     # fixtures tile their texture with a short period, which makes large-shift
     # tracking ambiguous for ANY tracker (both ours and OpenCV lock onto
     # aliases); the fast-motion sweep needs an unambiguous scene
-    from stereo_vo_tpu.data.synthetic import _smooth_noise
+    from stereo_vo.data.synthetic import _smooth_noise
 
     rng = np.random.default_rng(3)
     img = 128.0 + _smooth_noise(rng, 376, 1241, octaves=5, amp=55.0)
@@ -34,8 +34,8 @@ def test_fast_motion_parity(shift):
     cv2 = pytest.importorskip("cv2")
     import jax.numpy as jnp
 
-    from stereo_vo_tpu.ops.lk import lk_track_fwdbwd
-    from stereo_vo_tpu.ops.pyramid import build_pyramid
+    from stereo_vo.ops.lk import lk_track_fwdbwd
+    from stereo_vo.ops.pyramid import build_pyramid
 
     img = _image()
     h, w = img.shape

@@ -5,7 +5,7 @@ the trajectory (``/root/reference/src/kitti_node.cpp:46-76``). No KITTI data
 exists in this environment, so this is the stand-in: a photo-textured
 KITTI-resolution sequence long enough to cycle the 5-keyframe window dozens of
 times (~60+ keyframes over 160 frames), with our full pipeline and the OpenCV
-full-pipeline twin (``stereo_vo_tpu/eval/cv_twin.py``) replaying *identical
+full-pipeline twin (``stereo_vo/eval/cv_twin.py``) replaying *identical
 frames* and judged by ATE against exact ground truth.
 
 Generated in-test (no repo bloat) from the same machinery as the checked-in
@@ -31,7 +31,7 @@ SEEDS = (11, 23)
 def _make_frames(cfg, seed):
     from make_real_fixtures import load_photo
 
-    from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
+    from stereo_vo.data.synthetic import SyntheticStereoSequence
 
     world = SyntheticStereoSequence(
         cam=cfg.camera, n_frames=N_FRAMES, shape=(376, 1241), n_points=3000,
@@ -42,10 +42,10 @@ def _make_frames(cfg, seed):
 
 def test_long_sequence_drift_vs_twin():
     pytest.importorskip("cv2")
-    from stereo_vo_tpu.core.config import load_config
-    from stereo_vo_tpu.engine.driver import run_vo
-    from stereo_vo_tpu.eval.ate import absolute_trajectory_error
-    from stereo_vo_tpu.eval.cv_twin import run_cv_twin
+    from stereo_vo.core.config import load_config
+    from stereo_vo.engine.driver import run_vo
+    from stereo_vo.eval.ate import absolute_trajectory_error
+    from stereo_vo.eval.cv_twin import run_cv_twin
 
     cfg = load_config("kitti00")
     ratios = []

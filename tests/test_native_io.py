@@ -5,7 +5,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from stereo_vo_tpu.data.native_loader import (
+from stereo_vo.data.native_loader import (
     NativeStereoLoader,
     native_available,
     read_png_gray,

@@ -12,13 +12,13 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from stereo_vo_tpu.core.camera import CameraInfo
-from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
-from stereo_vo_tpu.ops.filters import box_filter, max_filter, sep_filter, sobel_x
-from stereo_vo_tpu.ops.lk import lk_track_pyramid
-from stereo_vo_tpu.ops.pyramid import build_pyramid, pyr_down
-from stereo_vo_tpu.ops.shi_tomasi import detect_corners, min_eig_response
-from stereo_vo_tpu.ops.stereo_bm import disparity_at, stereo_bm_disparity
+from stereo_vo.core.camera import CameraInfo
+from stereo_vo.data.synthetic import SyntheticStereoSequence
+from stereo_vo.ops.filters import box_filter, max_filter, sep_filter, sobel_x
+from stereo_vo.ops.lk import lk_track_pyramid
+from stereo_vo.ops.pyramid import build_pyramid, pyr_down
+from stereo_vo.ops.shi_tomasi import detect_corners, min_eig_response
+from stereo_vo.ops.stereo_bm import disparity_at, stereo_bm_disparity
 
 CAM = CameraInfo(focal=300.0, cx=160.0, cy=120.0, baseline=0.3)
 
@@ -132,7 +132,7 @@ def test_stereo_bm_at_matches_dense_and_compacts(world, images):
     """``stereo_bm_at`` == dense disparity sampled at feature pixels, with
     and without live-slot compaction (gather/scatter is exact; overflow
     falls back to full width)."""
-    from stereo_vo_tpu.ops.stereo_bm import stereo_bm_at
+    from stereo_vo.ops.stereo_bm import stereo_bm_at
 
     l0, r0, _ = images
     lj, rj = jnp.asarray(l0), jnp.asarray(r0)

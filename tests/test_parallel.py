@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_vo_tpu.backend.schur import bundle_adjust
-from stereo_vo_tpu.core.camera import CameraInfo
-from stereo_vo_tpu.parallel import make_mesh, sharded_bundle_adjust, window_to_landmark_major
+from stereo_vo.backend.schur import bundle_adjust
+from stereo_vo.core.camera import CameraInfo
+from stereo_vo.parallel import make_mesh, sharded_bundle_adjust, window_to_landmark_major
 
 from tests.test_schur import make_problem, perturb
 
@@ -77,8 +77,8 @@ def test_indivisible_capacity_raises(rng):
 
 def test_dp_sharded_batch(rng):
     """dp x lm batched solves equal per-window single-device solves."""
-    from stereo_vo_tpu.backend.schur import window_to_landmark_major
-    from stereo_vo_tpu.parallel.sharded_ba import dp_sharded_bundle_adjust
+    from stereo_vo.backend.schur import window_to_landmark_major
+    from stereo_vo.parallel.sharded_ba import dp_sharded_bundle_adjust
 
     cfg, w0, *_ = make_problem(rng, w=3, n_lm=16, f_cap=32, l_cap=32)
     _, w1, *_ = make_problem(rng, w=3, n_lm=16, f_cap=32, l_cap=32)
@@ -101,7 +101,7 @@ def test_dp_sharded_batch(rng):
 
 def test_multihost_helpers_single_process():
     """Single-host behavior of the multi-host bootstrap + data plane."""
-    from stereo_vo_tpu.parallel.distributed import initialize_multihost, shard_for_host
+    from stereo_vo.parallel.distributed import initialize_multihost, shard_for_host
 
     idx, cnt = initialize_multihost()  # no coordinator configured -> no-op
     assert idx == 0 and cnt == 1
@@ -117,8 +117,8 @@ def test_host_local_problem_to_global_single_process():
     import numpy as np
     import jax
 
-    from stereo_vo_tpu.parallel.distributed import host_local_problem_to_global
-    from stereo_vo_tpu.parallel.mesh import make_mesh
+    from stereo_vo.parallel.distributed import host_local_problem_to_global
+    from stereo_vo.parallel.mesh import make_mesh
 
     mesh = make_mesh((2,), ("dp",), devices=jax.devices()[:2])
     local = {"a": np.arange(8, dtype=np.float32).reshape(2, 4)}

@@ -29,7 +29,7 @@ def _load(i, side=0):
 
 
 def test_native_decoder_matches_pil():
-    from stereo_vo_tpu.data import native_loader
+    from stereo_vo.data import native_loader
 
     if not native_loader.native_available():
         pytest.skip("native IO library unavailable")
@@ -44,7 +44,7 @@ def test_native_decoder_matches_pil():
 def test_detection_on_real_imagery():
     import jax.numpy as jnp
 
-    from stereo_vo_tpu.ops.shi_tomasi import detect_corners
+    from stereo_vo.ops.shi_tomasi import detect_corners
 
     xy, resp, valid = detect_corners(jnp.asarray(_load(0), jnp.float32),
                                      max_corners=300, quality_level=0.1,
@@ -62,8 +62,8 @@ def test_lk_parity_on_real_imagery():
     cv2 = pytest.importorskip("cv2")
     import jax.numpy as jnp
 
-    from stereo_vo_tpu.ops.lk import lk_track_fwdbwd
-    from stereo_vo_tpu.ops.pyramid import build_pyramid
+    from stereo_vo.ops.lk import lk_track_fwdbwd
+    from stereo_vo.ops.pyramid import build_pyramid
 
     prev, cur = _load(0), _load(1)
     corners = cv2.goodFeaturesToTrack(prev, 128, 0.1, 30).reshape(-1, 2)
@@ -109,7 +109,7 @@ def test_stereo_bm_on_real_imagery():
     cv2 = pytest.importorskip("cv2")
     import jax.numpy as jnp
 
-    from stereo_vo_tpu.ops.stereo_bm import stereo_bm_disparity
+    from stereo_vo.ops.stereo_bm import stereo_bm_disparity
 
     left, right = _load(1, 0), _load(1, 1)
     ours = np.asarray(
@@ -124,9 +124,9 @@ def test_stereo_bm_on_real_imagery():
 
 
 def test_full_pipeline_on_real_fixtures(tmp_path):
-    from stereo_vo_tpu.core.config import load_config
-    from stereo_vo_tpu.data.kitti import KittiSequence
-    from stereo_vo_tpu.engine.driver import run_vo
+    from stereo_vo.core.config import load_config
+    from stereo_vo.data.kitti import KittiSequence
+    from stereo_vo.engine.driver import run_vo
 
     cfg = load_config("kitti00")
     seq = KittiSequence(os.path.dirname(FIXDIR), "real")

@@ -2,12 +2,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stereo_vo_tpu.backend.residuals import (
+from stereo_vo.backend.residuals import (
     reprojection_jacobians,
     reprojection_residual,
 )
-from stereo_vo_tpu.core.camera import CameraInfo
-from stereo_vo_tpu.core import geometry as geo
+from stereo_vo.core.camera import CameraInfo
+from stereo_vo.core import geometry as geo
 
 CAM = CameraInfo(focal=718.856, cx=607.19, cy=185.22, baseline=0.537)
 

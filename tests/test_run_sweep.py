@@ -25,13 +25,13 @@ def _load_run_sweep():
 
 
 def test_run_one_synthetic_world():
-    from stereo_vo_tpu.core.camera import CameraInfo
-    from stereo_vo_tpu.core.config import (
+    from stereo_vo.core.camera import CameraInfo
+    from stereo_vo.core.config import (
         BackendConfig,
         FrontendConfig,
         PipelineConfig,
     )
-    from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
+    from stereo_vo.data.synthetic import SyntheticStereoSequence
 
     rs = _load_run_sweep()
     cam = CameraInfo(focal=400.0, cx=160.0, cy=120.0, baseline=0.5)

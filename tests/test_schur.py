@@ -2,11 +2,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stereo_vo_tpu.backend.schur import bundle_adjust, lm_step, _masked_system
-from stereo_vo_tpu.backend.window import WindowState, empty_window
-from stereo_vo_tpu.core.camera import CameraInfo
-from stereo_vo_tpu.core.config import BackendConfig
-from stereo_vo_tpu.core import geometry as geo
+from stereo_vo.backend.schur import bundle_adjust, lm_step, _masked_system
+from stereo_vo.backend.window import WindowState, empty_window
+from stereo_vo.core.camera import CameraInfo
+from stereo_vo.core.config import BackendConfig
+from stereo_vo.core import geometry as geo
 
 CAM = CameraInfo(focal=500.0, cx=320.0, cy=240.0, baseline=0.5)
 
@@ -247,8 +247,8 @@ def _big_lm_problem(w, lcap, noise=0.5, seed=0):
     """Realistic-scale landmark-major problem with known ground truth."""
     import numpy as np
     import jax.numpy as jnp
-    from stereo_vo_tpu.backend.schur import LandmarkMajorProblem
-    from stereo_vo_tpu.core.camera import CameraInfo
+    from stereo_vo.backend.schur import LandmarkMajorProblem
+    from stereo_vo.core.camera import CameraInfo
 
     cam = CameraInfo(focal=718.856, cx=607.19, cy=185.22, baseline=0.537)
     rng = np.random.default_rng(seed)
@@ -285,7 +285,7 @@ def _big_lm_problem(w, lcap, noise=0.5, seed=0):
 def test_big_window_converges_to_ground_truth():
     """32x16384 must not just run — it must recover the trajectory (VERDICT r1
     weak #5). At 0.5 px observation noise the pose error floor is ~mm."""
-    from stereo_vo_tpu.backend.schur import lm_loop
+    from stereo_vo.backend.schur import lm_loop
 
     w, lcap = 32, 16384
     prob, cam, poses_gt, lm_gt = _big_lm_problem(w, lcap)
@@ -308,7 +308,7 @@ def test_big_window_converges_to_ground_truth():
 
 
 def test_condition_probe_and_precision_islands():
-    from stereo_vo_tpu.backend.schur import lm_loop, reduced_camera_condition
+    from stereo_vo.backend.schur import lm_loop, reduced_camera_condition
 
     w, lcap = 8, 1024
     prob, cam, poses_gt, _ = _big_lm_problem(w, lcap)
@@ -334,8 +334,8 @@ def test_narrow_build_path_matches_fused(rng, monkeypatch):
     """The large-shape narrow-einsum normal-equation build (used when
     L*W > _FUSED_GRAM_MAX_OBS, where the fused [L,W,10,10] Gram would
     materialize hundreds of MB) must produce the identical system."""
-    import stereo_vo_tpu.backend.schur as schur_mod
-    from stereo_vo_tpu.backend.schur import (
+    import stereo_vo.backend.schur as schur_mod
+    from stereo_vo.backend.schur import (
         _build_system, window_to_landmark_major,
     )
 

@@ -12,7 +12,7 @@ import time
 
 import numpy as np
 
-from stereo_vo_tpu.data.stream import LiveStereoStream, StereoFrame
+from stereo_vo.data.stream import LiveStereoStream, StereoFrame
 
 
 def _img(v, shape=(24, 32)):
@@ -102,13 +102,13 @@ def test_producer_thread_and_blocking_consumer():
 
 
 def _small_world():
-    from stereo_vo_tpu.core.camera import CameraInfo
-    from stereo_vo_tpu.core.config import (
+    from stereo_vo.core.camera import CameraInfo
+    from stereo_vo.core.config import (
         BackendConfig,
         FrontendConfig,
         PipelineConfig,
     )
-    from stereo_vo_tpu.data.synthetic import SyntheticStereoSequence
+    from stereo_vo.data.synthetic import SyntheticStereoSequence
 
     cam = CameraInfo(focal=400.0, cx=160.0, cy=120.0, baseline=0.5)
     cfg = PipelineConfig(
@@ -129,7 +129,7 @@ def test_live_stream_through_run_vo():
     """A threaded producer with jittered stamps, out-of-order left/right
     pushes, one sync-orphan and a mid-sequence burst drives the full VO
     pipeline; poses come out for exactly the synced, undropped pairs."""
-    from stereo_vo_tpu.engine import run_vo
+    from stereo_vo.engine import run_vo
 
     cfg, frames = _small_world()
     # roomy queue: this test checks sync/ordering correctness through the
@@ -175,7 +175,7 @@ def test_live_stream_paced_soak_queue_bounded():
     real-time contract, vo_node.cpp:139: a slow consumer sheds frames, it
     never stalls the camera). Keep-up rate is hardware-dependent — the CPU
     test asserts lossy liveness, not 20 Hz throughput."""
-    from stereo_vo_tpu.engine import run_vo
+    from stereo_vo.engine import run_vo
 
     cfg, frames = _small_world()
     # pre-compile the engine, then REUSE it (run_vo's engine= parameter): a

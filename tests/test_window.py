@@ -3,13 +3,13 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from stereo_vo_tpu.backend.window import (
+from stereo_vo.backend.window import (
     add_keyframe,
     empty_window,
     get_world_points,
     newest_pose,
 )
-from stereo_vo_tpu.core.config import BackendConfig
+from stereo_vo.core.config import BackendConfig
 
 CFG = BackendConfig(window_size=3, max_features=8, feature_capacity=16, landmark_capacity=32)
 
